@@ -105,7 +105,7 @@ def build_species_params(qs, ms, eta, n0, t0_ev, omgrf_ref) -> SpeciesParams:
     """Assemble SpeciesParams with the nondimensional alpha/gamma
     coefficients precomputed HOST-SIDE in true float64, and densities
     NORMALIZED to the reference electron density (see SpeciesParams
-    docstring for the TPU numeric-range rationale)."""
+    docstring for the numeric-range rationale)."""
     alpha_coef = n0 * qs**2 / (constants.EPS0 * ms * omgrf_ref**2)
     gamma_coef = qs / (ms * omgrf_ref)
     return SpeciesParams(

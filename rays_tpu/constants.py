@@ -23,13 +23,12 @@ E_CHARGE = 1.6022e-19        # elementary charge [C] (constants_m.f90:48)
 
 # Numerical-range guard for on-device safe division.
 #
-# IMPORTANT TPU CONSTRAINT: float64 on TPU is emulated as a float32 pair
-# (the XLA x64 rewriter), which has float64-like precision (~2^-49) but only
-# FLOAT32 EXPONENT RANGE (~1e+-38).  jnp.finfo(f64).tiny (2.2e-308)
-# underflows to 0 there, so every safe-division guard in device code uses
-# this value instead, and all physics formulas are arranged so intermediates
-# stay within ~1e+-30 (see core/eq_point.py for the nondimensionalized
-# alpha/gamma coefficients).
+# Every safe-division guard in device code uses this value instead of
+# jnp.finfo(f64).tiny, and all physics formulas are arranged so
+# intermediates stay within ~1e+-30 (see core/eq_point.py for the
+# nondimensionalized alpha/gamma coefficients).  The range discipline lets
+# the same code run where float64 is emulated with a float32 exponent range
+# (~1e+-38); whether the GPU still needs it is ROADMAP debt 3.4.
 SAFE_TINY = 1.0e-30
 
 # Species lookup table (reference RAYS_project/RAYS_lib/species_m.f90:31-34).

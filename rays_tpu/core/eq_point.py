@@ -58,18 +58,17 @@ def derive_eq_point(raw: RawEq, species, rf) -> EqPoint:
     """Raw fields -> full EqPoint (reference equilibrium_m.f90:237-269).
 
     omgc/omgp2/alpha/gamma are formed from the host-precomputed
-    nondimensional coefficients (see SpeciesParams) — the raw SI expressions
-    underflow the f32 exponent range of TPU f64 emulation.
+    nondimensional coefficients (see SpeciesParams), which keep every
+    intermediate inside a float32 exponent range (constants.SAFE_TINY).
     """
     bvec = raw.bvec
     bmag = jnp.sqrt(jnp.sum(bvec**2))
-    # one reciprocal, multiplied through: a VPU divide costs ~10x a mul
-    # (measured, artifacts/vpu_roofline.txt) and this spot issued 12 of
-    # them per eval
+    # one reciprocal, multiplied through (this spot issued 12 divides per
+    # eval)
     inv_bmag = 1.0 / jnp.maximum(bmag, constants.SAFE_TINY)
     bunit = bvec * inv_bmag
-    # gradbmag[i] = sum_j gradb[i,j] * bunit[j]; broadcast multiply-reduce
-    # beats a vmapped tiny dot_general on the VPU (measured ~5x)
+    # gradbmag[i] = sum_j gradb[i,j] * bunit[j], as a broadcast
+    # multiply-reduce rather than a vmapped tiny dot_general
     gradbmag = jnp.sum(raw.gradb * bunit[None, :], axis=1)
     # gradbunit[i,j] = (gradb[i,j] - gradbmag[i]*bunit[j]) / bmag
     gradbunit = (raw.gradb - gradbmag[:, None] * bunit[None, :]) * inv_bmag

@@ -1,6 +1,6 @@
 """Core pytree types and the static run configuration.
 
-Design split (TPU-first): everything numeric that may change between runs
+Design split: everything numeric that may change between runs
 without recompiling lives in ``Params`` (a pytree of arrays, traced);
 everything that selects code paths (model names, flags, vector layout) lives
 in ``Config`` (a frozen, hashable dataclass closed over at trace time).
@@ -34,11 +34,11 @@ class SpeciesParams(NamedTuple):
         alpha_s = alpha_coef_s * ns_norm_s * (omgrf_ref/omega)^2
         gamma_s = gamma_coef_s * |B| * (omgrf_ref/omega)
 
-    with every quantity O(1)..O(1e27).  TPU f64 emulation only has f32
-    exponent range (~1e+-38): the raw SI forms underflow it forward
-    (eps0*m_e ~ 8e-42) and physical densities overflow it in REVERSE mode
-    (the transpose of gradns/ns squares ns ~ 1e20).  Multiply by ``n_ref``
-    only at output boundaries (post-processing profiles).
+    with every quantity O(1)..O(1e27), inside a float32 exponent range
+    (~1e+-38): the raw SI forms would underflow it forward (eps0*m_e ~
+    8e-42) and physical densities overflow it in REVERSE mode (the
+    transpose of gradns/ns squares ns ~ 1e20).  Multiply by ``n_ref`` only
+    at output boundaries (post-processing profiles).
     """
 
     qs: Any          # (S,) charge [C]
@@ -154,14 +154,6 @@ class Config:
     ray_init_model: str = "simple_slab"
     rayinit_static: Any = None     # model-specific frozen dataclass
     nray_max: int = 10000
-
-    # fused single-kernel tracer (tracing/fused_slab.py): 'auto'/'off' use
-    # the XLA scan (measured ~16x faster on the current Mosaic toolchain,
-    # see trace_rays docstring); 'on' forces the fused kernel (the more
-    # accurate f32 path) for qualifying runs.  Driver-level dispatch
-    # (trace_rays) only — the kernel bakes parameters in as compile-time
-    # constants.
-    fused_kernel: str = "auto"
 
     # output
     save_trajectory: bool = True

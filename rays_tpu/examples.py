@@ -138,6 +138,49 @@ SLAB_ECH_DAMPED = """
 """
 
 
+# Tokamak ECH on a G-EQDSK spline equilibrium; format with EQDSK=<path>
+# (e.g. a file written by utils/solovev_2_eqdsk).
+EQDSK_TOROID_TMPL = """
+&diagnostics_list
+ run_label='eqdsk_toroid', integrate_eq_gradients=.false.
+/
+&species_list
+ n0=8.0e19, spec_name(0)='electron', t0s(0)=1.0e3,
+ spec_name(1)='deuterium', t0s(1)=1.0e2, eta(1)=1.
+/
+&rf_list
+ frf=90.e9, k0_sign=1, wave_mode='minus', ray_dispersion_model='cold',
+ ray_param='arcl', dispersion_resid_limit=0.1
+/
+&damping_list
+ damping_model='no_damp'
+/
+&equilibrium_list
+ equilib_model='axisym_toroid'
+/
+&axisym_toroid_eq_list
+ magnetics_model='eqdsk_magnetics_spline_interp',
+ plasma_psi_limit=1.0,
+ density_prof_model='parabolic', alphan1=1.0, alphan2=2.0, d_scrape_off=0.05,
+ temperature_prof_model=2*'zero'
+/
+&eqdsk_magnetics_spline_interp_list
+ eqdsk_file_name='{EQDSK}'
+/
+&ray_init_list
+ ray_init_model='axisym_toroid_ray_init_R_Z_nphi_ntheta', nray_max=20
+/
+&axisym_toroid_ray_init_R_Z_nphi_ntheta_list
+ n_R_launch=1, R_launch0=1.5, n_Z_launch=1, Z_launch0=0.0,
+ n_rindex_theta=2, rindex_theta0=0.0, delta_rindex_theta=0.2,
+ n_rindex_phi=1, rindex_phi0=0.3
+/
+&ode_list
+ ode_solver_name='RK4_ODE', nstep_max=500, ds=2.e-3, s_max=4.0
+/
+"""
+
+
 def setup_example(text=SLAB_ECH_90GHZ):
     from rays_tpu.config.namelist import parse_namelist
     from rays_tpu.config import schema

@@ -1,6 +1,6 @@
 """Uniform-grid binning of an extensive quantity along a trajectory.
 
-TPU re-design of reference RAYS_project/math_functions_lib/
+Re-design of reference RAYS_project/math_functions_lib/
 bin_to_uniform_grid_m.f90: for each consecutive trajectory segment
 [x_{i-1}, x_i] the increment dQ = Q_i - Q_{i-1} is distributed over the
 bins the segment spans, proportionally to overlap in index space
@@ -9,7 +9,7 @@ bins the segment spans, proportionally to overlap in index space
 Instead of the reference's per-segment scalar loop with four special
 cases, each segment's contribution to ALL bins is computed as a clipped
 interval-overlap vector — one dense (segments x bins) elementwise kernel
-(VPU-friendly, differentiable, vmappable over rays).  Out-of-range
+(branch-free, differentiable, vmappable over rays).  Out-of-range
 portions fall out of the clipped overlap exactly like the reference's
 fraction_in scaling; segments with zero extent put their whole dQ into the
 single containing bin.

@@ -21,8 +21,7 @@ def ellipk_ellipe(m):
     c2_sum = 0.5 * m  # c0^2 * 2^{-1} with c0^2 = m, coefficient 2^{n-1}
 
     # track 2^{n-1} by doubling a carry value: `2.0 ** n` with a traced
-    # exponent lowers through exp/log and loses precision under TPU f64
-    # emulation
+    # exponent lowers through exp/log and loses precision
     def body(n, carry):
         a, b, s, pw = carry
         an = 0.5 * (a + b)

@@ -1,6 +1,6 @@
 """Differentiable uniform-grid cubic splines (1-D and 2-D tensor product).
 
-TPU-native replacement for the reference's pspline extraction
+Replacement for the reference's pspline extraction
 (reference RAYS_project/splines_lib/quick_cube_splines_m.f90): uniform
 grid, not-a-knot boundary conditions (the reference's fixed choice,
 quick_cube_splines_m.f90:88-93), C2 continuity.
@@ -99,9 +99,8 @@ def _cell(sp_x0, sp_dx, n, x):
 def _seg_1d(sp: Spline1D, x):
     """(fi, fi1, mi, mi1, u): the segment endpoint data for x, fetched as
     ONE contiguous row of a (n-1, 4) segment table with jnp.take.  Four
-    separate scalar indexings (f[i], f[i+1], m[i], m[i+1]) batch under
-    vmap into four slow TPU gathers (~0.3 ms per 8k points vs ~0.02 for
-    the row form, measured); the table stack is loop-invariant in the
+    separate scalar indexings (f[i], f[i+1], m[i], m[i+1]) would batch
+    under vmap into four gathers; the table stack is loop-invariant in the
     knots so XLA hoists it out of trace scans."""
     n = sp.f.shape[-1]
     i, u = _cell(sp.x0, sp.dx, n, x)
@@ -173,9 +172,8 @@ def eval_2d(sp: Spline2D, x, y):
 class CellSpline2D(NamedTuple):
     """Per-cell bicubic coefficient form of K stacked Spline2Ds on one grid.
 
-    TPU rationale: `eval_2d` costs 16 scalar gathers per point per field —
-    the dominant cost of spline-geometry tracing (measured ~4 ms per 8k
-    points per field on a v5e, over half the whole ray RHS).  Folding
+    Rationale: `eval_2d` costs 16 scalar gathers per point per field, the
+    dominant cost of spline-geometry tracing.  Folding
     (F, Mx, My, Mxy) into per-cell polynomial coefficients and stacking all
     K fields makes evaluation ONE gather of a contiguous (K, 4, 4) block
     per point, with values AND first derivatives coming from the same
@@ -208,11 +206,10 @@ def build_cell_spline_2d(sps, x_splines=()) -> CellSpline2D:
 
     ``x_splines``: Spline1Ds on the SAME x grid, appended as extra K
     channels whose cells carry the 1-D u-segment cubic in the q=0 row
-    (constant in y).  TPU rationale: gathers are point-rate-bound, nearly
-    independent of row width (measured ~2 cycles/point for 16B and 192B
-    rows alike), so folding a co-gridded 1-D spline into the one cell
-    fetch makes its evaluation free — the EQDSK toroid's RBphi(R) eval
-    was costing as much as the whole psi(R,Z) fetch as a separate gather.
+    (constant in y).  Rationale: a gather's cost is set by the number of
+    points more than by the row width, so folding a co-gridded 1-D spline
+    into the one cell fetch saves the EQDSK toroid's separate RBphi(R)
+    gather.  (Chosen before the GPU port; ROADMAP 1.5 re-measures it.)
     """
     sps = list(sps)
     sp0 = sps[0]
@@ -237,11 +234,9 @@ def build_cell_spline_2d(sps, x_splines=()) -> CellSpline2D:
 
 def _cell_gather(cs: CellSpline2D, x, y):
     """Locate the cell and fetch its (K, 4, 4) coefficient block with ONE
-    flat row gather.  The two-index form ``cells[i, j]`` lowers to an XLA
-    gather that runs ~30x slower on TPU than a single-axis row gather of
-    the same bytes (measured 0.70 vs 0.024 ms per 8k points on a v5e), so
-    the cell table is viewed as (nxm*nym, K*16) — a free bitcast, hoisted
-    out of the trace loop — and indexed linearly."""
+    flat row gather.  Instead of the two-index form ``cells[i, j]``, the
+    cell table is viewed as (nxm*nym, K*16) — a free bitcast, hoisted out
+    of the trace loop — and indexed linearly."""
     nxm, nym, K = cs.cells.shape[0], cs.cells.shape[1], cs.cells.shape[2]
     tx = (x - cs.x0) / cs.dx
     ty = (y - cs.y0) / cs.dy
@@ -251,9 +246,9 @@ def _cell_gather(cs: CellSpline2D, x, y):
     v = ty - j.astype(ty.dtype)
     flat = cs.cells.reshape(nxm * nym, K * 16)
     # jnp.take, NOT flat[lin]: under vmap, scalar [] indexing batches into
-    # a gather with start_index_map={0,1} (a 2-component start index) that
-    # TPU executes ~6x slower; take's batching rule emits the fast
-    # single-axis row gather (start_index_map={0}).
+    # a gather with start_index_map={0,1} (a 2-component start index);
+    # take's batching rule emits the single-axis row gather
+    # (start_index_map={0}).
     c = jnp.take(flat, i * nym + j, axis=0).reshape(K, 4, 4)   # (K, 4q, 4p)
     return c, u, v
 
@@ -270,9 +265,8 @@ def _poly_weights(u, v):
 
 
 def _contract(c, a, b):
-    """sum_{q,p} c[k, q, p] a[p] b[q] as broadcast multiply-reduce.  An
-    einsum here lowers to a tiny batched dot_general under vmap that runs
-    ~5x slower on the TPU VPU than the elementwise form (measured)."""
+    """sum_{q,p} c[k, q, p] a[p] b[q] as broadcast multiply-reduce (an
+    einsum here lowers to a tiny batched dot_general under vmap)."""
     return (c * a[None, None, :] * b[None, :, None]).sum((-1, -2))
 
 

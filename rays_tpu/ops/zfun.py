@@ -1,4 +1,4 @@
-"""Plasma dispersion (Fried-Conte Z) function, TPU-native.
+"""Plasma dispersion (Fried-Conte Z) function, as device code.
 
 The reference evaluates Z via the classic continued-fraction/asymptotic
 routine `wzdisp` and accelerates the real-axis case with cubic splines on a
@@ -17,7 +17,7 @@ formula
 
 whose error is O(exp(-(pi/(2h))^2)): with h = 0.25 that is ~7e-18, far
 below the reference's spline accuracy.  The sum is a fixed-size, branch-free
-vector reduction — ideal for the VPU, trivially vmappable and exactly
+vector reduction — trivially vmappable and exactly
 differentiable (no data-dependent control flow, unlike the reference's
 region-switching rational approximations).
 """
@@ -48,8 +48,8 @@ def dawsn(x):
 def zfun_real_parts(x):
     """(Re, Im) of Z(x) for real x: (-2*dawsn(x), sqrt(pi)*exp(-x^2)).
 
-    Complex dtypes are unsupported on TPU, so the device API returns the
-    real pair; compose with 1j on host if a complex value is wanted.
+    The device API keeps to real arithmetic and returns the real pair;
+    compose with 1j on host if a complex value is wanted.
     """
     x = jnp.asarray(x)
     return -2.0 * dawsn(x), math.sqrt(math.pi) * jnp.exp(-(x**2))
@@ -67,7 +67,7 @@ def zfun0_real_parts(x, kz):
 
 
 def zfun_real(x):
-    """Complex Z(x) for real x — host-side convenience (not TPU-safe)."""
+    """Complex Z(x) for real x — host-side convenience."""
     re, im = zfun_real_parts(x)
     return re + 1j * im
 
@@ -86,8 +86,9 @@ def zfun_prime_real(x):
 # in the first quadrant and extended by the symmetries
 #   w(conj(z)) = conj(w(-z)),   w(-z) = 2 exp(-z^2) - w(z).
 #
-# TPU-native design: complex dtypes are avoided (complex128 is unsupported
-# under TPU f64 emulation), so everything is explicit real-pair arithmetic.
+# Design: complex dtypes are avoided (devices that emulate f64 have no
+# complex128), so everything is explicit real-pair arithmetic.  Whether the
+# GPU keeps this is ROADMAP debt 3.4.
 # Instead of region switching (data-dependent branches), the upper half-
 # plane uses ONE uniformly valid rational approximation — Weideman's method
 # (SIAM J. Numer. Anal. 31 (1994) 1497): with the Mobius map
@@ -183,7 +184,7 @@ def zfun0_parts(x, y, kz):
 
 
 def wofz(z):
-    """Complex w(z) — host-side convenience (not TPU-safe)."""
+    """Complex w(z) — host-side convenience."""
     z = jnp.asarray(z)
     re, im = wofz_parts(jnp.real(z), jnp.imag(z))
     return re + 1j * im

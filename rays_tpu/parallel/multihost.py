@@ -1,12 +1,13 @@
-"""Multi-host scale-out: ray batches sharded across processes over DCN.
+"""Multi-host scale-out: ray batches sharded across processes.
 
 The reference tops out at shared-memory OpenMP on one node
 (reference RAYS_project/RAYS_lib/ray_tracing.f90:62-67, openmp_m.f90) — the
 multi-host path is new capability (SURVEY.md §2.8).  Design:
 
   * every host runs the same program; ``initialize()`` wires the JAX
-    distributed runtime (DCN) so all hosts' devices form one global mesh;
-  * the ray axis shards over ALL devices (ICI within a slice, DCN across);
+    distributed runtime so all hosts' devices form one global mesh;
+  * the ray axis shards over ALL devices (NVLink within a host, the
+    network across hosts);
     equilibrium/species params replicate;
   * per-host ray initialization builds only the local shard via
     ``jax.make_array_from_process_local_data`` — no host ever materializes
@@ -29,8 +30,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
     """Bring up the JAX distributed runtime (no-op on a single process).
 
     With no arguments, jax.distributed.initialize auto-detects the cluster
-    from the environment (TPU pod metadata / SLURM / Open MPI).  Explicit
-    arguments cover bare-metal launches:
+    from the environment (SLURM / Open MPI).  Explicit arguments cover
+    bare-metal launches:
 
         rays_tpu.parallel.multihost.initialize(
             coordinator_address="10.0.0.1:8476",
@@ -87,7 +88,7 @@ def local_ray_slice(n_global: int, process_count: int | None = None,
 
 def make_multihost_tracer(cfg, mesh: Mesh):
     """Jitted tracer over the global mesh; identical to the single-host
-    sharded tracer — XLA routes the ray axis over ICI+DCN from the specs."""
+    sharded tracer — XLA places the ray axis from the specs."""
     from rays_tpu.parallel.sharded import make_sharded_tracer
 
     return make_sharded_tracer(cfg, mesh)

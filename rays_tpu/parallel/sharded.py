@@ -1,15 +1,18 @@
 """Scale-out: shard the ray batch over a device mesh.
 
 The reference's only parallelism is an OpenMP `parallel do` over rays
-(reference RAYS_project/RAYS_lib/ray_tracing.f90:62-67).  The TPU-native
-equivalent: rays are the leading axis of every batch array, sharded over a
-1-D `jax.sharding.Mesh` axis named 'rays'; params are replicated.  Tracing
-is embarrassingly parallel so XLA compiles it collective-free; reductions
+(reference RAYS_project/RAYS_lib/ray_tracing.f90:62-67).  Here rays are
+the leading axis of every batch array, sharded over a 1-D
+`jax.sharding.Mesh` axis named 'rays'; params are replicated.  Tracing is
+embarrassingly parallel so XLA compiles it collective-free; reductions
 (deposition profiles, adjoint gradients w.r.t. replicated params) turn into
-psum/all-reduce over ICI automatically under `jit`.
+psum/all-reduce under `jit`, which XLA hands to NCCL over NVLink on a
+multi-GPU host.
 """
 
 from __future__ import annotations
+
+import re
 
 import jax
 import numpy as np
@@ -55,3 +58,18 @@ def make_sharded_tracer(cfg, mesh: Mesh):
         trace,
         in_shardings=(repl, ray_sharding, ray_sharding, ray_sharding),
     )
+
+
+COLLECTIVES = ("all-reduce", "all-gather", "all-to-all", "collective-permute",
+               "reduce-scatter", "collective-broadcast")
+
+
+def collective_ops(hlo_text: str) -> set:
+    """The collective operations instantiated in compiled HLO text (op
+    instances ``%x = ... all-reduce(...)``, not metadata mentions)."""
+    found = set()
+    for line in hlo_text.splitlines():
+        for c in COLLECTIVES:
+            if re.search(rf"= [^=]*\b{c}\b", line.strip()):
+                found.add(c)
+    return found

@@ -6,9 +6,9 @@ Re-design of reference RAYS_project/post_process_lib/deposition_profiles_m
 absorbed power) per trajectory point (:50-68), per-ray binning via the
 uniform-grid binner, then the sum over rays (:229-293).
 
-TPU shape: the per-ray binning is the dense segment-overlap kernel in
+Device shape: the per-ray binning is the dense segment-overlap kernel in
 ops/binning.py, vmapped over the ray batch and summed — under a sharded ray
-axis the sum lowers to a psum over ICI.  Absorbed power per point is
+axis the sum lowers to a psum over the mesh.  Absorbed power per point is
 initial_ray_power * v[damping_slot] (the integrated absorption fraction),
 frozen (dQ = 0) beyond npoints via masking.
 """

@@ -13,7 +13,7 @@ Re-design of reference RAYS_project/post_process_lib/mirror_processor_m.f90:
   * per-ray detailed diagnostics (:235-465) via rays_tpu.post.ray_diags;
   * O-X conversion analysis hookup (the do_OX_conv_analysis option).
 
-TPU shape: the reference's scalar (i, j) grid loops are one jitted vmap
+Device shape: the reference's scalar (i, j) grid loops are one jitted vmap
 over the flattened grid; the bisection inversion is the batched bisector
 from ops/bisect.
 """

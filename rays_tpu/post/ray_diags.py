@@ -10,7 +10,7 @@ n_imag = ki/k0, the electron Z-function arguments for harmonics 0-2
 residual; write them in the reference's netCDF schema so
 graphics_RAYS/plot_ray_diags.py consumes the file unchanged.
 
-TPU shape: the reference's scalar (iray, istep) double loop is ONE jitted
+Device shape: the reference's scalar (iray, istep) double loop is ONE jitted
 vmap over the flattened (ray, step) axis — every quantity for every point
 in a single device pass; invalid points (beyond npoints) are masked to the
 reference's zero fill.

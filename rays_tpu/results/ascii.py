@@ -121,7 +121,7 @@ def write_formatted_ray_files(cfg, results, directory=".", run_label=None,
     (check_save.f90:152-154 into the files opened in intialize.f90:79-91)
     and writes the companion description file at the end of trace_rays
     (ray_tracing.f90:280-286); the rationale is crash forensics
-    (diagnostics_m.f90:85-91).  The TPU trace computes the whole trajectory
+    (diagnostics_m.f90:85-91).  The device trace computes the whole trajectory
     in one fused scan, so the equivalent here is written from the saved
     trajectory immediately after the (chunked) device computation returns —
     same file names, same list-directed layout, so the legacy stream reader

@@ -60,11 +60,11 @@ def write_results_nc(cfg, results, total_trace_time=0.0, path=None,
                else np.asarray(ray_trace_time, np.float32))
         v = var("ray_trace_time", np.float32, ("number_of_rays",), rtt)
         # the reference measures this per ray inside its OpenMP loop
-        # (ray_tracing.f90:74-75); rays run in lockstep on the TPU, so
+        # (ray_tracing.f90:74-75); rays run in lockstep on the device, so
         # this field is an attribution, and the file says so
         v.attribution = (b"batch wall time attributed by each ray's share "
                          b"of accepted steps (rays advance in lockstep on "
-                         b"the TPU); not an independent per-ray timer")
+                         b"the device); not an independent per-ray timer")
         var("end_residuals", np.float32, ("number_of_rays",),
             np.asarray(results.end_residuals, np.float32))
         var("max_residuals", np.float32, ("number_of_rays",),

@@ -84,7 +84,7 @@ def make_diagnostics(path):
 
 def ray_trace_times(results, wall):
     """Per-ray trace-time attribution (reference ray_trace_time(iray),
-    ray_tracing.f90:74-75,254).  Rays run in lockstep on the TPU, so the
+    ray_tracing.f90:74-75,254).  Rays run in lockstep on the device, so the
     honest per-ray analog is the batch wall time attributed by each ray's
     share of live steps."""
     import numpy as np

@@ -1,10 +1,9 @@
 """Compensated (Neumaier/Kahan) accumulation for the scan carry.
 
-The f32-with-compensated-summation mode (SURVEY.md §7.3 item 6,
-VERDICT r4 next #3): TPU f64 is emulated at ~60x the f32 cost
-(BENCH_r04: 6.5k vs 415k rays/s).  TwoSumming each ``v += dv``
+The f32-with-compensated-summation mode (SURVEY.md §7.3 item 6), for
+devices where f64 costs a multiple of f32.  TwoSumming each ``v += dv``
 increment into a running compensation vector removes the accumulation
-rounding against the large carried state for ~4 extra VPU adds/sub per
+rounding against the large carried state for ~4 extra adds/subs per
 element.  MEASURED RESULT (scripts/precision_probe.py ->
 artifacts/precision_probe.txt, recorded in BASELINE.md): on the slab
 ECH cases this does NOT shrink the f32-vs-f64 end error (1.00x),
@@ -17,13 +16,13 @@ long traces at large |v|); the 1e-9-tolerance parity tier stays on
 f64.
 
 The reference integrates everything in f64 (`real(KIND=rkind)`,
-constants_m.f90) and never needed this; it is the TPU-native answer to
-the same accuracy contract (e.g. the Solovev SG example's 1e-9
+constants_m.f90) and never needed this; it is an f32 answer to the
+same accuracy contract (e.g. the Solovev SG example's 1e-9
 tolerances, solovev_ECH_90GHz_minus_root.in:50-80).
 
 XLA preserves IEEE semantics (no reassociation) so the error term
 ``(v - t) + dv`` survives compilation; this is the standard Neumaier
-branch-free form, branchless via ``where`` for TPU lockstep.
+branch-free form, branchless via ``where`` for lockstep rays.
 """
 
 from __future__ import annotations

@@ -63,7 +63,7 @@ def _eqn_ray_from_eq(cfg, params, s, v, eq):
             eq, kvec * inv_k0, omgrf, k0)
 
     # group velocity (eqn_ray.f90:131-144).  Reciprocal-multiply forms:
-    # each div fan-out below used to issue 3 VPU divides per eval
+    # each div fan-out below used to issue 3 divides per eval
     safe_dddw = jnp.where(dddw == 0.0, jnp.asarray(1.0, dt), dddw)
     inv_dddw = 1.0 / safe_dddw
     vg = -dddk * inv_dddw

@@ -2,8 +2,8 @@
 
 Mirrors reference RAYS_project/RAYS_lib/RK4_ode_m.f90:59-94: four RHS
 evaluations per ds; the reference aborts (leaving v unchanged) if any stage
-flags a stop.  Here all four stages are computed unconditionally (TPU:
-branchless lockstep across the vmapped ray batch) and the first-flagged
+flags a stop.  Here all four stages are computed unconditionally
+(branchless lockstep across the vmapped ray batch) and the first-flagged
 stage status wins; on any nonzero status the caller keeps the old v.
 """
 

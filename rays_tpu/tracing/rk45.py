@@ -4,7 +4,7 @@ The reference's adaptive path is the Shampine-Gordon Adams PECE suite
 (reference RAYS_project/RAYS_lib/ode_RAYS.f90, SG_ode_m.f90): variable
 order/step with per-ray tolerance state, advancing from s to sout = s + ds
 each outer step.  Variable-order multistep state is hostile to lockstep
-batching, so the TPU-native equivalent is an embedded one-step pair with PI
+batching, so the batched equivalent is an embedded one-step pair with PI
 step-size control: same contract (advance exactly ds to tolerance; results
 agree with SG at the tolerance level, which is how the examples are
 validated — SURVEY.md §7.1), but O(1) state per ray and identical control
@@ -201,9 +201,9 @@ def rk45_step_carried_full(cfg, params, s, v, h0, f1, st1, c0=None):
         # ODE_TOTAL_ERROR check below still fires if a ray needed more.
         # UNROLLED in Python rather than lax.scan: under the production
         # tracer's per-outer-step remat, reverse-of-scan would write every
-        # substep's residuals (stage linearization points) to HBM, while
-        # straight-line code stays register/fusion-resident exactly like
-        # the RK4 body — measured 5x cheaper adjoint (BENCH_r05 vs r04).
+        # substep's residuals (stage linearization points) to device
+        # memory, while straight-line code stays register/fusion-resident
+        # exactly like the RK4 body (ROADMAP 1.3 re-measures the cost).
         carry = init
         for _ in range(n_scan):
             done = ~cond(carry)

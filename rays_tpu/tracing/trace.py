@@ -1,6 +1,6 @@
 """Batched ray tracing: `lax.scan` over steps, `vmap` over rays.
 
-TPU re-design of the reference driver loop (reference RAYS_project/RAYS_lib/
+Re-design of the reference driver loop (reference RAYS_project/RAYS_lib/
 ray_tracing.f90): the OpenMP `parallel do` over rays becomes a vmapped batch
 (shardable over a device mesh, see rays_tpu.parallel); the per-ray
 `trajectory:` loop becomes one `lax.scan` of length nstep_max with
@@ -56,7 +56,7 @@ def get_step_fn(cfg):
     if cfg.ode_solver_name == "RK4_ODE":
         return rk4.rk4_step
     if cfg.ode_solver_name == "SG_ODE":
-        # TPU-native adaptive equivalent of the Shampine-Gordon suite
+        # batched adaptive equivalent of the Shampine-Gordon suite
         return rk45.rk45_step
     raise ValueError(f"invalid ode solver {cfg.ode_solver_name}")
 
@@ -72,44 +72,10 @@ def get_carried_step_fn(cfg):
 
 
 def trace_rays(cfg, params, v0, status0, pwr_wt) -> RayResults:
-    """Driver-level tracer dispatch (the analog of the reference's
-    trace_rays, ray_tracing.f90:1).
-
-    Paths:
-      * the jitted XLA scan (trace_batch) — the production path;
-      * the fused whole-trajectory Pallas kernel (tracing/fused_slab.py)
-        on ``cfg.fused_kernel='on'`` for qualifying runs (f32 batch,
-        analytic slab, RK4, no damping, summaries only, outside jit).
-
-    Measured on the v5e (BENCH_r03): the XLA scan runs the 32k-ray slab
-    batch at ~400k rays/s (~3.4 cycles per vector-register op — the
-    while-loop body is fully fused and pipelined by XLA), while the Pallas
-    kernel reaches only ~26k rays/s: Mosaic schedules this ~1.4k-op
-    sequential body an order of magnitude less efficiently.  So 'auto'
-    selects the SCAN; the kernel remains available (and is the more
-    accurate f32 path — see tests/test_fused.py) for toolchains where the
-    balance flips.
-
-    Must be called OUTSIDE jit when the fused path may engage: the kernel
-    bakes run parameters in as compile-time constants.  Inside jitted code
-    (adjoints, sharded tracers) call trace_batch directly.
-    """
-    mode = getattr(cfg, "fused_kernel", "auto")
-    if mode not in ("auto", "on", "off"):
-        raise ValueError(f"invalid fused_kernel mode {mode!r}")
-    if mode == "on":
-        from rays_tpu.tracing import fused_slab
-
-        qualifies = (fused_slab.supported(cfg)
-                     and v0.dtype == jnp.float32
-                     and not isinstance(v0, jax.core.Tracer))
-        if not qualifies:
-            raise ValueError(
-                "fused_kernel='on' but the run does not qualify "
-                "(needs f32 + analytic slab + RK4 + no damping + "
-                "save_trajectory=False, outside jit)")
-        return fused_slab.trace_batch_fused(cfg, params, v0, status0,
-                                            pwr_wt)
+    """Driver-level tracer (the analog of the reference's trace_rays,
+    ray_tracing.f90:1): the jitted `trace_batch` scan, compiled once per
+    cfg.  Inside jitted code (adjoints, sharded tracers) call trace_batch
+    directly."""
     return _jitted_tracer(cfg)(params, v0, status0, pwr_wt)
 
 
@@ -218,7 +184,7 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
         if cfg.save_trajectory:
             out = (jnp.where(ok[:, None], v, 0.0), jnp.where(ok, resid, 0.0), ok)
         else:
-            out = None  # summaries live in the carry: no per-step HBM writes
+            out = None  # summaries live in the carry: no per-step writes
         if comp:
             return (v, f1, st1, hstate, status, nstep, end_res, max_res,
                     cvec), out
@@ -233,7 +199,8 @@ def trace_batch(cfg, params, v0, status0, pwr_wt) -> RayResults:
     # rematerialize per-step internals on the backward pass: reverse-mode
     # through the scan then stores only the (small) carry per step instead
     # of every RK stage/equilibrium intermediate — the memory strategy of
-    # SURVEY.md §5.7 that makes production-scale adjoints fit in HBM.
+    # SURVEY.md §5.7 that makes production-scale adjoints fit in device
+    # memory.
     if getattr(cfg, "remat_steps", True):
         body = jax.checkpoint(body, prevent_cse=False)
     final, outs = jax.lax.scan(body, init, jnp.arange(cfg.nstep_max))

@@ -6,9 +6,9 @@ Re-design of the reference's ray_scan application
 wall time} -> scan summary.  Scan parameters and algorithms follow
 scanner_m.f90:1-20: 'ds' with fixed_increment / pwr_of_2 / integer_divide;
 the reference's 'num_threads' scaling scan maps to a ray-batch-size sweep
-(the TPU analog of thread count).
+(the device analog of thread count).
 
-TPU-native property: ds is a *traced* parameter, so the whole ds-scan
+Property: ds is a *traced* parameter, so the whole ds-scan
 reuses one compiled executable — the reference re-initializes the ODE
 module per run; we just call the jitted tracer with a new params pytree.
 """

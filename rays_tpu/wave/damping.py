@@ -60,7 +60,7 @@ def damp_fund_ech(cfg, params, eq, v_xk, vg):
     safe_k3 = jnp.where(k3 == 0.0, jnp.asarray(1.0, dt), k3)
     xi = (omgrf + eq.omgc[0]) / (safe_k3 * vth)
 
-    # Z function as a real pair (complex unsupported on TPU).  |xi| > 5 is
+    # Z function as a real pair (real arithmetic only).  |xi| > 5 is
     # masked to no-damping below; clamp the argument BEFORE the evaluation
     # (double-where discipline) so reverse-mode AD through the masked-out
     # branch never sees the inf/underflow intermediates a huge xi produces

@@ -9,10 +9,9 @@ independent A/B partner, reproducing the reference's
 with an exact rather than finite-difference alternative — tests assert
 the two agree.
 
-VPU notes (artifacts/vpu_roofline.txt): divides are issued once per
-unique denominator and multiplied through; the tiny matvecs use
-broadcast multiply-reduce, not ``@`` (a vmapped (S,)x(S,S) dot_general
-is measured ~5x slower than the explicit form at these sizes).
+Op-mix notes: divides are issued once per unique denominator and
+multiplied through; the tiny matvecs use broadcast multiply-reduce, not
+``@`` (which would be a vmapped (S,)x(S,S) dot_general).
 """
 
 from __future__ import annotations

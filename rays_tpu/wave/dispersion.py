@@ -31,8 +31,7 @@ def alpha_gamma(cfg, params, x, omega):
     """(alpha, gamma, bunit, bmag) at x for frequency omega — the minimal
     plasma state needed by the cold dispersion relation.  Formed from the
     host-precomputed nondimensional coefficients (SpeciesParams docstring):
-    the raw SI expressions underflow TPU f64 emulation's f32 exponent
-    range."""
+    the raw SI expressions would leave a float32 exponent range."""
     bvec, ns, _ = base.eq_fields(cfg, params, x)
     bmag = jnp.sqrt(jnp.sum(bvec**2))
     bunit = bvec / jnp.maximum(bmag, constants.SAFE_TINY)
@@ -73,7 +72,7 @@ def solve_cold_n1sq_vs_n3(alpha, gamma, n3):
     """Cold-plasma n_perp^2 roots vs n_par, with the numerically stable
     quadratic branch (reference disp_solve_cold_n1sq_vs_n3.f90:53-87).
 
-    TPU note: complex dtypes are unsupported on TPU, so instead of the
+    Device code keeps to real arithmetic, so instead of the
     reference's complex(4) result we return ``(roots (4,), evanescent ())``:
     when the discriminant is negative the roots are a complex-conjugate pair;
     ``roots`` then holds their common real part and ``evanescent`` is True.
@@ -171,7 +170,7 @@ def residual(alpha, gamma, n1, n3):
     The cold Hermitian dielectric is eps = [[S,-iD,0],[iD,S,0],[0,0,P]]
     with real S, D, P; with n = (n1, 0, n3) the determinant of
     M = eps_h + nn - n^2 I is real and expands in purely real arithmetic
-    (complex dtypes are unsupported on TPU):
+    (device code keeps to real arithmetic):
 
         det = M33*(M11*M22 - D^2) - n1^2 n3^2 * M22
     """

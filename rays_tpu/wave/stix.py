@@ -80,7 +80,7 @@ def cold_eps_hermitian(alpha, gamma):
     eps = [[S, -iD, 0], [iD, S, 0], [0, 0, P]]
     (dielectric_cold, suscep_m.f90:142-176).
 
-    HOST-SIDE ONLY: complex dtypes are unsupported on TPU.  Device code uses
+    HOST-SIDE ONLY (complex dtypes).  Device code uses
     the real (S, D, P) decomposition directly (see dispersion.residual).
     """
     S, D, P, _, _ = rlsdp(alpha, gamma)

@@ -22,7 +22,7 @@ package's Dawson/Weideman implementation).  tests/test_parity.py traces the
 reference example classes with both implementations from identical initial
 conditions and asserts the trajectories agree.
 
-NOT TPU code.  Slow on purpose: correctness anchor only.
+NOT device code.  Slow on purpose: correctness anchor only.
 """
 
 from __future__ import annotations

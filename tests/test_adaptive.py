@@ -3,7 +3,7 @@
 The reference's daily-driver integration path is the Shampine-Gordon suite:
 every flagship input selects ode_solver_name='SG_ODE'
 (examples_RAYS/ECH_90GHz_slab/slab_ECH_90GHz_case_1.in:73; the Solovev
-example at tol 1e-9; SG_ode_m.f90:89-159).  The TPU equivalence contract
+example at tol 1e-9; SG_ode_m.f90:89-159).  The equivalence contract
 (SURVEY.md §7.1): the adaptive stepper agrees with the exact solution at
 the tolerance level — validated here against the independent NumPy oracle
 run at much smaller fixed RK4 steps, for both the slab (time

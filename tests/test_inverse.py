@@ -1,8 +1,8 @@
 """The flagship differentiability claim, reproduced in CI (VERDICT r3
 item 8): the inverse-problem demo — recover perturbed Solovev (kappa,
 iota0) from ray endpoints by Adam through the full integration scan —
-must make verifiable progress in a bounded configuration.  The committed
-full-run transcript is artifacts/inverse_demo.txt (scripts/inverse_demo.py).
+must make verifiable progress in a bounded configuration.  The full run
+is scripts/inverse_demo.py.
 """
 
 import os

@@ -73,8 +73,9 @@ def test_binner_conserves_and_splits():
 
 
 def test_elliptic_golden():
-    """AGM is 1-ulp exact in true f64 (verified on host numpy); on TPU the
-    emulated-f64 sqrt limits E to ~4e-8 relative — ample for coil fields."""
+    """AGM is 1-ulp exact in true f64 (verified on host numpy); an
+    emulated-f64 sqrt would limit E to ~4e-8 relative — ample for coil
+    fields."""
     K, E = jax.jit(elliptic.ellipk_ellipe)(jnp.float64(0.5))
     np.testing.assert_allclose(float(K), 1.8540746773013719, rtol=1e-9)
     np.testing.assert_allclose(float(E), 1.3506438810476755, rtol=1e-6)

@@ -79,7 +79,7 @@ def test_conv_coeff_matches_numpy(ox_case):
     F = 0.5 * (1.0 + g) * math.sqrt(g) / (0.5) ** 1.5
     G = 0.5 * math.sqrt(g) / math.sqrt(0.5)
 
-    # N.B. keep each T within TPU f64-emulation's f32 exponent range
+    # N.B. keep each T within a float32 exponent range
     # (~1e-38, constants.py): detuning by ~0.05 in nz gives T ~ 1e-9
     for nz, ny in [(a["n_crit"], 0.0), (a["n_crit"] - 0.05, 0.0),
                    (a["n_crit"] + 0.03, 0.01), (a["n_crit"], 0.02)]:

@@ -1,7 +1,7 @@
 """Trajectory parity against the independent NumPy oracle (tests/_oracle.py).
 
-The round-2 correctness anchor: every example class (slab, damped slab,
-Solovev fan, EQDSK toroid, MPEX mirror) is traced both by the JAX/TPU
+The correctness anchor: every example class (slab, damped slab,
+Solovev fan, EQDSK toroid, MPEX mirror) is traced both by the JAX
 implementation and by a scalar-loop NumPy transcription of the reference
 Fortran (formulas verbatim from eqn_ray.f90 / deriv_cold.f90 / RK4_ode_m.f90
 / equilibrium_m.f90 / the geometry modules), from identical initial
@@ -161,7 +161,6 @@ def test_parity_eqdsk_toroid(eqdsk_file):
     from rays_tpu.config.namelist import parse_namelist
     from rays_tpu import run as runner
     from rays_tpu.rayinit import vector as init_vector
-    from rays_tpu.utils.eqdsk_io import read_geqdsk
     from test_axisym import AXISYM_TMPL
 
     cfg, params = schema.from_namelist(parse_namelist(AXISYM_TMPL.format(
@@ -170,6 +169,16 @@ def test_parity_eqdsk_toroid(eqdsk_file):
     v0 = init_vector.initial_ode_vectors(cfg, params, rvec0, rindex0)
     st = jnp.zeros((v0.shape[0],), jnp.int32)
     res = _trace_repo(cfg, params, v0, st, pwr)
+    oc = _oracle_cfg(cfg, params, _eqdsk_eq_fn(cfg, params, eqdsk_file))
+    # spline backends: same interpolant, independent implementations; the
+    # rounding difference (~1e-12 in B) grows along the trajectory
+    _assert_parity(cfg, params, res, oc, rtol=1e-6)
+
+
+def _eqdsk_eq_fn(cfg, params, eqdsk_file):
+    """The oracle's EQDSK toroid equilibrium for a package run on the same
+    G-EQDSK file."""
+    from rays_tpu.utils.eqdsk_io import read_geqdsk
 
     e, sp = params.eq, params.species
     p = {
@@ -186,12 +195,8 @@ def test_parity_eqdsk_toroid(eqdsk_file):
         density_prof_model=cfg.eq_static.density_prof_model,
         temperature_prof_model=cfg.eq_static.temperature_prof_model)
     n_phys = np.asarray(sp.n0s, float) * float(sp.n_ref)
-    eq_fn = oracle.EqdskToroidEq(models, p, n_phys, np.asarray(sp.t0s, float),
-                                 read_geqdsk(eqdsk_file))
-    oc = _oracle_cfg(cfg, params, eq_fn)
-    # spline backends: same interpolant, independent implementations; the
-    # rounding difference (~1e-12 in B) grows along the trajectory
-    _assert_parity(cfg, params, res, oc, rtol=1e-6)
+    return oracle.EqdskToroidEq(models, p, n_phys, np.asarray(sp.t0s, float),
+                                read_geqdsk(eqdsk_file))
 
 
 MPEX_DIR = ("/root/reference/examples_RAYS/MPEX_examples/"

@@ -1,8 +1,7 @@
 """Precision strategy: f32 (production) vs f64 (parity/adjoint) tracing.
 
-TPU f64 is emulated (~60x slower on this workload, see bench.py); f32 rides
-the vector units at full rate.  These tests pin the accuracy contract that
-makes f32 the production default: trajectories across the example classes
+f32 runs at a multiple of the f64 rate on accelerators.  These tests pin
+the accuracy contract that makes f32 the production default: trajectories across the example classes
 stay within ~1e-3 relative of the f64 reference over the full step budget
 (measured: 3.5e-4 worst-case on the slab case, which pivots through a
 turning point; ~3e-5 on the damped case), stop behavior is identical, and
